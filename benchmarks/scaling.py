@@ -1,11 +1,12 @@
-"""Multi-chip scaling benchmark: reinit steps/s, 1 -> N chips.
+"""Multi-GPU scaling benchmark: reinit steps/s, 1 -> N devices.
 
 The BASELINE scaling metric ("reinit steps/s scaling 1 -> N hosts" at >=80%
-halo-exchange efficiency).  Run on a pod slice (after
-``parallel.distributed.init_distributed()`` on every host); on a single
-chip it degenerates to the bench.py measurement through the sharded path.
+halo-exchange efficiency).  Run on the GPUs of one host (or, after
+``parallel.distributed.init_distributed()`` on every host, across hosts);
+on a single device it degenerates to the bench.py measurement through the
+sharded path.
 
-Weak scaling: each chip owns a BLOCK^3 subdomain (the global grid grows
+Weak scaling: each device owns a BLOCK^3 subdomain (the global grid grows
 with the mesh).  Strong scaling: fixed GLOBAL^3 grid split over the mesh.
 Prints one JSON line per configuration.
 """
@@ -24,8 +25,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax
 import jax.numpy as jnp
 
-from levelsetfortran_tpu.parallel.mesh import factor3, make_mesh
-from levelsetfortran_tpu.parallel.sharded import ShardedLevelSet
+from levelsetfortran_jax.parallel.mesh import factor3, make_mesh
+from levelsetfortran_jax.parallel.sharded import ShardedLevelSet
 
 
 def sphere(gshape, dtype=jnp.float32):
@@ -38,14 +39,14 @@ def measure(solver, phi0, h, steps_small=5, steps_big=45, reps=3):
     phi = solver.device_put(phi0)
     best = float("inf")
     for it_n in (steps_small, steps_big):
-        out, _, _ = solver.reinit(phi, h, iters=it_n, tol=0.0)
-        float(jnp.sum(out))                     # compile + warm
+        jax.block_until_ready(solver.reinit(phi, h, iters=it_n,
+                                            tol=0.0))   # compile + warm
     for _ in range(reps):
         ts = []
         for it_n in (steps_small, steps_big):
             t0 = time.perf_counter()
-            out, _, _ = solver.reinit(phi, h, iters=it_n, tol=0.0)
-            float(jnp.sum(out))
+            jax.block_until_ready(solver.reinit(phi, h, iters=it_n,
+                                                tol=0.0))
             ts.append(time.perf_counter() - t0)
         best = min(best, (ts[1] - ts[0]) / (steps_big - steps_small))
     return best
@@ -54,7 +55,7 @@ def measure(solver, phi0, h, steps_small=5, steps_big=45, reps=3):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--block", type=int, default=256,
-                    help="per-chip subdomain edge (weak scaling)")
+                    help="per-device subdomain edge (weak scaling)")
     ap.add_argument("--global-edge", type=int, default=0,
                     help="fixed global edge (strong scaling; 0 = weak)")
     ap.add_argument("--devices", type=int, default=0,
@@ -66,11 +67,6 @@ def main():
     n = args.devices or len(devs)
     devs = devs[:n]
     mesh_shape = factor3(n)
-    # 2D decomposition keeps the fused Pallas kernel applicable
-    if mesh_shape[2] != 1:
-        mesh_shape = tuple(sorted(
-            (mesh_shape[0] * mesh_shape[2], mesh_shape[1], 1),
-            reverse=True))
     mesh = make_mesh(mesh_shape, devs)
 
     if args.global_edge:
@@ -89,10 +85,10 @@ def main():
     print(json.dumps({
         "metric": f"reinit_steps_per_sec_{mode}_scaling",
         "devices": n, "mesh": list(mesh_shape), "gshape": list(gshape),
-        "pallas": solver.use_pallas,
+        "device_kind": devs[0].device_kind,
         "steps_per_sec": 1.0 / per_step,
         "cell_updates_per_sec": cells / per_step,
-        "cell_updates_per_sec_per_chip": cells / per_step / n,
+        "cell_updates_per_sec_per_device": cells / per_step / n,
     }))
 
 

@@ -1,9 +1,9 @@
 """Serving throughput: geometries/sec for a batch of small grids,
 vmapped-stack vs per-geometry sequential execution.
 
-Substantiates pipeline/batch.py's routing rule: below chip saturation the
-stacked program wins (VPU fill + one compile); at large grids the solo
-fused-kernel path wins.  Run directly:
+Substantiates pipeline/batch.py's routing rule: below device saturation
+the stacked program wins (fuller launches + one compile); at large grids
+the per-geometry solo path wins.  Run directly:
 
     python benchmarks/serving.py [--n 48] [--batch 8] [--steps 50]
 """
@@ -43,7 +43,7 @@ def main():
     ap.add_argument("--steps", type=int, default=50)
     args = ap.parse_args()
 
-    from levelsetfortran_tpu.solvers.reinit import reinit_fixed, reinit_step
+    from levelsetfortran_jax.solvers.reinit import reinit_fixed, reinit_step
 
     phis = make_batch(args.batch, args.n)
     dx = 2.0 / (args.n - 1)

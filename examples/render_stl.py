@@ -1,6 +1,8 @@
 """Demo: run the pipeline on an STL and sphere-trace the smoothed SDF.
 
-    python examples/render_stl.py /root/reference/cube40.stl out.ppm
+    python examples/render_stl.py mesh.stl out.ppm
+
+Without a mesh argument it renders the generated twoCube10 fixture.
 
 Writes a shaded PPM image (no imaging deps needed) plus depth as .npy.
 Everything upstream of the pixels is differentiable — see
@@ -18,9 +20,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax.numpy as jnp
 import numpy as np
 
-from levelsetfortran_tpu.config import LevelSetConfig
-from levelsetfortran_tpu.pipeline.run import run
-from levelsetfortran_tpu.render.sphere_trace import camera_rays, render
+from levelsetfortran_jax.config import LevelSetConfig
+from levelsetfortran_jax.pipeline.run import run
+from levelsetfortran_jax.render.sphere_trace import camera_rays, render
 
 
 def write_ppm(path, img):
@@ -33,7 +35,11 @@ def write_ppm(path, img):
 
 
 def main():
-    stl = sys.argv[1] if len(sys.argv) > 1 else "/root/reference/cube40.stl"
+    if len(sys.argv) > 1:
+        stl = sys.argv[1]
+    else:
+        from levelsetfortran_jax.models import fixtures
+        stl = fixtures.write_twocube10("fixtures")
     out = sys.argv[2] if len(sys.argv) > 2 else "render.ppm"
     size = int(sys.argv[3]) if len(sys.argv) > 3 else 256
 

@@ -4,16 +4,16 @@ and converged elements must freeze while the rest keep integrating."""
 import jax.numpy as jnp
 import numpy as np
 
-from levelsetfortran_tpu.config import LevelSetConfig
-from levelsetfortran_tpu.grid.grid import Grid3D
-from levelsetfortran_tpu.models.analytic import sdf_sphere
-from levelsetfortran_tpu.models.analytic import box_mesh, icosphere_mesh
-from levelsetfortran_tpu.pipeline.batch import (common_shape_grids,
+from levelsetfortran_jax.config import LevelSetConfig
+from levelsetfortran_jax.grid.grid import Grid3D
+from levelsetfortran_jax.models.analytic import sdf_sphere
+from levelsetfortran_jax.models.analytic import box_mesh, icosphere_mesh
+from levelsetfortran_jax.pipeline.batch import (common_shape_grids,
                                                 minmax_batched,
                                                 reinit_batched, run_batch)
-from levelsetfortran_tpu.pipeline.run import run_mesh
-from levelsetfortran_tpu.solvers.minmax_flow import minmax_flow
-from levelsetfortran_tpu.solvers.reinit import reinit
+from levelsetfortran_jax.pipeline.run import run_mesh
+from levelsetfortran_jax.solvers.minmax_flow import minmax_flow
+from levelsetfortran_jax.solvers.reinit import reinit
 
 
 def _grid(n=24, dx=0.1):
@@ -36,7 +36,7 @@ def test_reinit_batched_matches_solo():
         jnp.stack([phi_a, phi_b]), grid.dx, h, 30, 1e-4)
 
     for i, (phi0, hh) in enumerate([(phi_a, h[0]), (phi_b, h[1])]):
-        solo = reinit(phi0, grid.dx, hh, 30, 1e-4, use_pallas=False)
+        solo = reinit(phi0, grid.dx, hh, 30, 1e-4)
         np.testing.assert_allclose(np.asarray(batched[i]),
                                    np.asarray(solo.phi), atol=1e-6)
         assert int(counts[i]) == int(solo.iterations)
@@ -55,7 +55,7 @@ def test_minmax_batched_matches_solo():
         jnp.stack([phi, phi]), grid.dx, h1, 20, 1e-9)
 
     for i in range(2):
-        solo = minmax_flow(phi, grid.dx, h1[i], 20, 1e-9, use_pallas=False)
+        solo = minmax_flow(phi, grid.dx, h1[i], 20, 1e-9)
         np.testing.assert_allclose(np.asarray(batched[i]),
                                    np.asarray(solo.phi), atol=1e-6)
         assert int(counts[i]) == int(solo.iterations)
@@ -72,7 +72,7 @@ def test_converged_element_freezes():
 
     assert int(counts[0]) < int(counts[1])
     # the early-stopped element's field is the one its own stop rule left
-    solo = reinit(exact, grid.dx, h[0], 50, 1e-3, use_pallas=False)
+    solo = reinit(exact, grid.dx, h[0], 50, 1e-3)
     np.testing.assert_allclose(np.asarray(out[0]), np.asarray(solo.phi),
                                atol=1e-6)
 
@@ -103,7 +103,7 @@ def test_run_batch_matches_solo_pipeline(tmp_path):
 
 def test_data_parallel_batch_matches_unsharded():
     import jax
-    from levelsetfortran_tpu.pipeline.batch import (_pad_batch,
+    from levelsetfortran_jax.pipeline.batch import (_pad_batch,
                                                     batch_sharding)
 
     grid = _grid(n=16)

@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from levelsetfortran_tpu.solvers.checkpointed import (
+from levelsetfortran_jax.solvers.checkpointed import (
     minmax_resumable, reinit_resumable)
-from levelsetfortran_tpu.solvers.reinit import reinit
-from levelsetfortran_tpu.utils.checkpoint import FieldCheckpointer
-from levelsetfortran_tpu.utils.profiling import measure_cell_updates_per_sec
+from levelsetfortran_jax.solvers.reinit import reinit
+from levelsetfortran_jax.utils.checkpoint import FieldCheckpointer
+from levelsetfortran_jax.utils.profiling import measure_cell_updates_per_sec
 
 
 def _sphere(n=24, dx=0.1, scale=2.0):
@@ -67,12 +67,11 @@ def test_minmax_resumable_runs(tmp_path):
 
 
 def test_throughput_counter():
-    from levelsetfortran_tpu.solvers.reinit import reinit_fixed
+    from levelsetfortran_jax.solvers.reinit import reinit_fixed
     phi0 = _sphere(16)
 
     def scan(n):
-        return lambda p: reinit_fixed(p, 0.1, 0.005, n, remat=False,
-                                      use_pallas=False)
+        return lambda p: reinit_fixed(p, 0.1, 0.005, n, remat=False)
 
     out = measure_cell_updates_per_sec(scan, phi0, warmup_steps=1,
                                        bench_steps=4)
@@ -81,14 +80,14 @@ def test_throughput_counter():
 
 
 def test_sharded_resume_matches_uninterrupted(tmp_path, eight_devices):
-    """Checkpoint/resume composed with the domain decomposition (VERDICT
-    r3 weak #4): kill between chunks, restart with a fresh manager,
+    """Checkpoint/resume composed with the domain decomposition: kill
+    between chunks, restart with a fresh manager,
     resume — the final sharded field equals an uninterrupted sharded run
     step for step (sign source frozen at the original phi0)."""
     import jax
-    from levelsetfortran_tpu.parallel.mesh import make_mesh
-    from levelsetfortran_tpu.parallel.sharded import ShardedLevelSet
-    from levelsetfortran_tpu.solvers.checkpointed import (
+    from levelsetfortran_jax.parallel.mesh import make_mesh
+    from levelsetfortran_jax.parallel.sharded import ShardedLevelSet
+    from levelsetfortran_jax.solvers.checkpointed import (
         reinit_resumable_sharded)
 
     phi0 = _sphere(16)
@@ -118,16 +117,40 @@ def test_sharded_resume_matches_uninterrupted(tmp_path, eight_devices):
 
 def test_sharded_pipeline_with_checkpoint_dir(tmp_path, eight_devices):
     """run.py no longer XORs mesh_shape and checkpoint_dir."""
-    from levelsetfortran_tpu.config import LevelSetConfig
-    from levelsetfortran_tpu.models.analytic import icosphere_mesh
-    from levelsetfortran_tpu.pipeline.run import run_mesh
+    from levelsetfortran_jax.config import LevelSetConfig
+    from levelsetfortran_jax.models.analytic import icosphere_mesh
+    from levelsetfortran_jax.pipeline.run import run_mesh
 
     mesh = icosphere_mesh(radius=0.5, subdiv=1)
     cfg = LevelSetConfig(dx=0.1, pad_cells=4, mesh_shape=(2, 2, 2),
                          reinit_iters=6, minmax_iters=4, advect_iters=2,
                          final_reinit_iters=2, checkpoint_chunk=3,
-                         checkpoint_dir=str(tmp_path / "ck"),
-                         use_pallas="off")
+                         checkpoint_dir=str(tmp_path / "ck"))
     res = run_mesh(mesh, cfg, write_outputs=False)
     assert res.reinit_iters >= 1
     assert np.isfinite(res.asymptotic_error)
+
+
+def test_missing_orbax_fails_with_clear_message(tmp_path, monkeypatch):
+    """orbax is optional and stays off the main path: without it only
+    --checkpoint-dir fails, and it says why."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "orbax", None)
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    with pytest.raises(ImportError, match="orbax-checkpoint"):
+        FieldCheckpointer(str(tmp_path / "ck"))
+
+
+def test_main_path_does_not_import_orbax():
+    import os
+    import subprocess
+    import sys
+    code = ("import sys; import levelsetfortran_jax.pipeline.cli, "
+            "levelsetfortran_jax.pipeline.run, "
+            "levelsetfortran_jax.pipeline.batch; "
+            "print('orbax' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert out.stdout.strip().splitlines()[-1] == "False", out.stderr

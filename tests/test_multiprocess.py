@@ -2,7 +2,7 @@
 
 Spawns 2 OS processes, each with 2 virtual CPU devices, joined through a
 localhost ``jax.distributed`` coordinator — the standard JAX way to test a
-multi-host pod without hardware.  The sharded reinit runs over the 4
+multi-host cluster without hardware.  The sharded reinit runs over the 4
 global devices with the x-axis split ACROSS the two processes, so halo
 exchange and the RMS psum exercise the cross-process collective path.
 """

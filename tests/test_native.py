@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from levelsetfortran_tpu import native
-from levelsetfortran_tpu.io.stl import read_stl
+from levelsetfortran_jax import native
+from levelsetfortran_jax.io.stl import read_stl
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no C++ toolchain")
@@ -47,10 +47,10 @@ def test_dedup_straddles_cell_boundary():
     assert verts.shape[0] == 1 and inverse[0] == inverse[1]
 
 
-def test_reference_fixture_matches_numpy_path(monkeypatch):
-    mesh_native = read_stl("/root/reference/cube40.stl")
+def test_reference_fixture_matches_numpy_path(monkeypatch, icosphere_stl):
+    mesh_native = read_stl(icosphere_stl)
     monkeypatch.setattr(native, "dedup_vertices", lambda *a, **k: None)
-    mesh_numpy = read_stl("/root/reference/cube40.stl")
+    mesh_numpy = read_stl(icosphere_stl)
     assert mesh_native.n_nodes == mesh_numpy.n_nodes
     np.testing.assert_allclose(mesh_native.vertices, mesh_numpy.vertices,
                                atol=1e-12)

@@ -10,20 +10,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from levelsetfortran_tpu.grid.grid import Grid3D
-from levelsetfortran_tpu.models.analytic import (
+from levelsetfortran_jax.grid.grid import Grid3D
+from levelsetfortran_jax.models.analytic import (
     box_mesh, icosphere_mesh, sdf_box, sdf_sphere)
-from levelsetfortran_tpu.ops.band import narrow_band
-from levelsetfortran_tpu.ops.derivs import (
+from levelsetfortran_jax.ops.band import narrow_band
+from levelsetfortran_jax.ops.derivs import (
     first_derivative, laplacian, second_derivative)
-from levelsetfortran_tpu.ops.init_sign import (
+from levelsetfortran_jax.ops.init_sign import (
     initialize_sign_field, nearest_centroid, orientation_sign)
-from levelsetfortran_tpu.ops.interp import sample_surface, trilinear
-from levelsetfortran_tpu.ops.minmax import minmax_rhs, seven_point_average
-from levelsetfortran_tpu.ops.sign import smeared_sign
-from levelsetfortran_tpu.ops.stencil import (
+from levelsetfortran_jax.ops.interp import sample_surface, trilinear
+from levelsetfortran_jax.ops.minmax import minmax_rhs, seven_point_average
+from levelsetfortran_jax.ops.sign import smeared_sign
+from levelsetfortran_jax.ops.stencil import (
     boundary_extrapolate, interior_mask, shift)
-from levelsetfortran_tpu.ops.weno import weno_derivatives, weno_godunov
+from levelsetfortran_jax.ops.weno import weno_derivatives, weno_godunov
 
 SMALL = 16
 BIG = 24
@@ -288,7 +288,7 @@ class TestInitSign:
 class TestSignedDistanceInit:
     def test_box_exact_distance(self):
         """Point-triangle distance to a box surface equals |box SDF|."""
-        from levelsetfortran_tpu.ops.init_sign import signed_distance_init
+        from levelsetfortran_jax.ops.init_sign import signed_distance_init
         mesh = box_mesh(half_extent=(0.4, 0.4, 0.4))
         grid = GRID_S
         phi = signed_distance_init(
@@ -302,7 +302,7 @@ class TestSignedDistanceInit:
     def test_sphere_approx_distance(self):
         """Distance to an icosphere approximates the sphere SDF to the
         faceting error."""
-        from levelsetfortran_tpu.ops.init_sign import signed_distance_init
+        from levelsetfortran_jax.ops.init_sign import signed_distance_init
         mesh = icosphere_mesh(radius=0.6, subdiv=2)
         grid = GRID_B
         phi = signed_distance_init(
@@ -313,7 +313,7 @@ class TestSignedDistanceInit:
         assert np.abs(np.asarray(phi) - np.asarray(truth)).max() < 0.02
 
     def test_differentiable_wrt_vertices(self):
-        from levelsetfortran_tpu.ops.init_sign import signed_distance_init
+        from levelsetfortran_jax.ops.init_sign import signed_distance_init
         mesh = box_mesh(half_extent=(0.4, 0.4, 0.4))
         grid = GRID_S
         elements = jnp.asarray(mesh.elements)
@@ -328,10 +328,10 @@ class TestSignedDistanceInit:
 
 
 class TestInitCulling:
-    """Block-culled init (VERDICT r3 #2) vs the dense all-pairs scan."""
+    """Block-culled init vs the dense all-pairs scan."""
 
     def test_culled_matches_dense(self):
-        from levelsetfortran_tpu.ops.init_sign import (
+        from levelsetfortran_jax.ops.init_sign import (
             _dense_signed_distance_init, build_init_culling,
             signed_distance_init)
         mesh = icosphere_mesh(radius=0.6, subdiv=2)
@@ -356,7 +356,7 @@ class TestInitCulling:
         subgradient is non-unique and 1-ulp fusion differences between the
         blocked and flat layouts can route it to the other tied triangle;
         the perturbation breaks every tie.)"""
-        from levelsetfortran_tpu.ops.init_sign import (
+        from levelsetfortran_jax.ops.init_sign import (
             build_init_culling, signed_distance_init)
         mesh = box_mesh(half_extent=(0.4, 0.4, 0.4))
         grid = GRID_S
@@ -378,9 +378,9 @@ class TestInitCulling:
                                    rtol=1e-10, atol=1e-12)
 
     def test_sharded_culled_matches_dense(self, eight_devices):
-        from levelsetfortran_tpu.ops.init_sign import (
+        from levelsetfortran_jax.ops.init_sign import (
             _dense_signed_distance_init, signed_distance_init_sharded)
-        from levelsetfortran_tpu.parallel.mesh import make_mesh
+        from levelsetfortran_jax.parallel.mesh import make_mesh
         mesh = icosphere_mesh(radius=0.6, subdiv=2)
         grid = make_grid(32, dx=0.05)    # 32 = 2*16: shard blocks 16 = block
         v = jnp.asarray(mesh.vertices, jnp.float64)
@@ -391,3 +391,95 @@ class TestInitCulling:
         dense = _dense_signed_distance_init(grid, v, e, dtype=jnp.float64)
         np.testing.assert_allclose(np.asarray(out), np.asarray(dense),
                                    rtol=1e-12, atol=1e-12)
+
+
+    def _sharded_case(self, devices):
+        from levelsetfortran_jax.ops.init_sign import (
+            _dense_signed_distance_init, build_init_culling)
+        from levelsetfortran_jax.parallel.mesh import make_mesh
+        mesh = icosphere_mesh(radius=0.6, subdiv=2)
+        grid = make_grid(32, dx=0.05)
+        v = jnp.asarray(mesh.vertices, jnp.float64)
+        e = jnp.asarray(mesh.elements)
+        cull = build_init_culling(grid, v, e, block=8, bucketed=False)
+        dense = _dense_signed_distance_init(grid, v, e, dtype=jnp.float64)
+        return grid, v, e, make_mesh((2, 2, 2), devices), cull, dense
+
+    def test_uniform_table_stays_on_host(self, eight_devices):
+        """The uniform table the sharded init slices is built on the host
+        and replicated by the init straight onto the mesh; a device-built
+        table would sit on the default device beside its replica."""
+        grid, v, e, dmesh, cull, dense = self._sharded_case(eight_devices)
+        assert isinstance(cull.cand_idx, np.ndarray)
+        assert isinstance(cull.bidxs[0], np.ndarray)
+        from levelsetfortran_jax.ops.init_sign import (
+            signed_distance_init_sharded)
+        out = signed_distance_init_sharded(grid, v, e, dmesh,
+                                           dtype=jnp.float64, culling=cull)
+        assert len(out.sharding.device_set) == 8
+        np.testing.assert_allclose(np.asarray(out), np.asarray(dense),
+                                   rtol=1e-12, atol=1e-12)
+
+    def test_sharded_overflow_split_matches_dense(self, eight_devices):
+        """The overflow split (K1-wide pass for every block, overflow
+        blocks recomputed from their full rows) is exact."""
+        from levelsetfortran_jax.ops.init_sign import (
+            _overflow_split, signed_distance_init_sharded)
+        grid, v, e, dmesh, cull, dense = self._sharded_case(eight_devices)
+        assert _overflow_split(cull.cand_idx, e.shape[0], cull.nblocks,
+                               (2, 2, 2), (2, 2, 2), 128, k1=128)
+        out = signed_distance_init_sharded(grid, v, e, dmesh,
+                                           dtype=jnp.float64, culling=cull,
+                                           _split_k1=128)
+        np.testing.assert_allclose(np.asarray(out), np.asarray(dense),
+                                   rtol=1e-12, atol=1e-12)
+
+    def test_sharded_culled_init_under_jit(self, eight_devices):
+        """A prebuilt culling passed into a jitted sharded init (the
+        differentiable chain's use) is a traced table: the host-side
+        overflow split must not read it, and the result stays exact."""
+        from levelsetfortran_jax.ops.init_sign import (
+            signed_distance_init_sharded)
+        grid, v, e, dmesh, cull, dense = self._sharded_case(eight_devices)
+        f = jax.jit(lambda vv, c: signed_distance_init_sharded(
+            grid, vv, e, dmesh, dtype=jnp.float64, culling=c))
+        np.testing.assert_allclose(np.asarray(f(v, cull)),
+                                   np.asarray(dense), rtol=1e-12,
+                                   atol=1e-12)
+
+
+def test_init_scan_matmul_precision_pinned():
+    """The quad-form init scans MUST pin matmul precision: a reduced
+    default (bf16 passes, or TF32 on GPU tensor cores) corrupts the Ericson
+    region classification — on twoCube10 far-field phi spikes to 2e4 and
+    reinit runs to the 10k-iteration cap instead of ~13 steps.  CPU tests
+    compute f32 regardless, so this gate inspects the jaxpr instead of the
+    values."""
+    from levelsetfortran_jax.ops.init_sign import (nearest_centroid,
+                                                   nearest_sign_scan)
+
+    def dot_precisions(fn, *args):
+        jaxpr = jax.make_jaxpr(fn)(*args)
+        found = []
+
+        def walk(j):
+            for eq in j.eqns:
+                if eq.primitive.name == "dot_general":
+                    found.append(eq.params.get("precision"))
+                for v in eq.params.values():
+                    for x in (v if isinstance(v, (list, tuple)) else (v,)):
+                        if hasattr(x, "jaxpr"):
+                            walk(x.jaxpr)
+
+        walk(jaxpr.jaxpr)
+        return found
+
+    pts = jnp.zeros((32, 3), jnp.float32)
+    tri = jnp.zeros((16, 3, 3), jnp.float32)
+    cen = jnp.zeros((16, 3), jnp.float32)
+    for fn, args in ((lambda p, t: nearest_sign_scan(p, t), (pts, tri)),
+                     (nearest_centroid, (pts, cen))):
+        precs = dot_precisions(fn, *args)
+        assert precs, "expected a matmul in the scan"
+        for p in precs:
+            assert p == (jax.lax.Precision.HIGHEST,) * 2, p

@@ -1,12 +1,12 @@
 """Pipeline execution strategies: sharded, checkpointed, plain — same
-converged results on the bundled reference fixture."""
+converged results on the generated twoCube10 fixture."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from levelsetfortran_tpu.config import LevelSetConfig
-from levelsetfortran_tpu.pipeline.run import run
+from levelsetfortran_jax.config import LevelSetConfig
+from levelsetfortran_jax.pipeline.run import run
 
 
 def _cfg(**kw):
@@ -22,12 +22,13 @@ def _cfg(**kw):
 
 
 @pytest.fixture(scope="module")
-def plain_result():
-    return run("/root/reference/twoCube10.stl", _cfg(), write_outputs=False)
+def plain_result(twocube10_stl):
+    return run(twocube10_stl, _cfg(), write_outputs=False)
 
 
-def test_sharded_strategy_matches_plain(plain_result, eight_devices):
-    res = run("/root/reference/twoCube10.stl",
+def test_sharded_strategy_matches_plain(plain_result, eight_devices,
+                                        twocube10_stl):
+    res = run(twocube10_stl,
               _cfg(mesh_shape=(2, 2, 2), steps_per_exchange=2),
               write_outputs=False)
     # Same math, but two differently-compiled programs: XLA's fusion/FMA
@@ -44,8 +45,9 @@ def test_sharded_strategy_matches_plain(plain_result, eight_devices):
                                b[:n[0], :n[1], :n[2]], atol=1.5e-3)
 
 
-def test_checkpointed_strategy_matches_plain(plain_result, tmp_path):
-    res = run("/root/reference/twoCube10.stl",
+def test_checkpointed_strategy_matches_plain(plain_result, tmp_path,
+                                            twocube10_stl):
+    res = run(twocube10_stl,
               _cfg(checkpoint_dir=str(tmp_path), checkpoint_chunk=15),
               write_outputs=False)
     np.testing.assert_allclose(res.phi_smoothed,
@@ -53,19 +55,19 @@ def test_checkpointed_strategy_matches_plain(plain_result, tmp_path):
     assert res.reinit_iters == plain_result.reinit_iters
 
 
-def test_reference_parity_config_end_to_end():
+def test_reference_parity_config_end_to_end(twocube10_stl):
     """REFERENCE_PARITY (float64, all reference quirks on) runs the full
     pipeline on CPU — the configuration for bit-level parity studies."""
-    from levelsetfortran_tpu.config import REFERENCE_PARITY
+    from levelsetfortran_jax.config import REFERENCE_PARITY
 
     cfg = REFERENCE_PARITY.replace(
         dx=0.2, pad_cells=4, reinit_iters=20, minmax_iters=5,
         advect_iters=5, final_reinit_iters=2)
-    res = run("/root/reference/twoCube10.stl", cfg, write_outputs=False)
+    res = run(twocube10_stl, cfg, write_outputs=False)
     assert res.phi_init.dtype == np.float64
     assert np.isfinite(res.phi_smoothed).all()
     assert np.isfinite(res.advected).all()
     # quirks must actually change the numerics vs the corrected math
     cfg2 = cfg.replace(quirks=type(cfg.quirks)())
-    res2 = run("/root/reference/twoCube10.stl", cfg2, write_outputs=False)
+    res2 = run(twocube10_stl, cfg2, write_outputs=False)
     assert np.abs(res.phi_init - res2.phi_init).max() > 0.0

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from levelsetfortran_tpu.grid.grid import Grid3D
-from levelsetfortran_tpu.models.analytic import sdf_sphere
-from levelsetfortran_tpu.pipeline.differentiable import (
+from levelsetfortran_jax.grid.grid import Grid3D
+from levelsetfortran_jax.models.analytic import sdf_sphere
+from levelsetfortran_jax.pipeline.differentiable import (
     image_loss_and_vertex_grad, render_from_vertices)
-from levelsetfortran_tpu.render.sphere_trace import (camera_rays, render,
+from levelsetfortran_jax.render.sphere_trace import (camera_rays, render,
                                                      trace_depth)
 
 
@@ -78,14 +78,13 @@ def test_end_to_end_vertex_gradient():
     out = render_from_vertices(verts, faces, grid, eye=(0.0, -3.0, 0.0),
                                target=(0.0, 0.0, 0.0), reinit_steps=5,
                                minmax_steps=3, height=12, width=12,
-                               n_march_steps=48, use_pallas=False)
+                               n_march_steps=48)
     assert bool(out.image[6, 6] > 0.0)
 
     loss, grad = image_loss_and_vertex_grad(
         verts, faces, grid, jnp.zeros((12, 12), jnp.float32),
         eye=(0.0, -3.0, 0.0), target=(0.0, 0.0, 0.0), reinit_steps=5,
-        minmax_steps=3, height=12, width=12, n_march_steps=48,
-        use_pallas=False)
+        minmax_steps=3, height=12, width=12, n_march_steps=48)
     g = np.asarray(grad)
     assert np.isfinite(g).all()
     assert np.abs(g).max() > 0.0, "pixels must be sensitive to vertices"
@@ -99,8 +98,8 @@ def test_vertex_gradient_finite_difference():
     truncation error dominates, which is a property of the estimator, not a
     bug (verified: agreement tightens monotonically with march tolerance).
     """
-    from levelsetfortran_tpu.ops.init_sign import signed_distance_init
-    from levelsetfortran_tpu.solvers.reinit import reinit_fixed
+    from levelsetfortran_jax.ops.init_sign import signed_distance_init
+    from levelsetfortran_jax.solvers.reinit import reinit_fixed
 
     verts, faces = _octahedron()
     grid = _grid(24)
@@ -110,7 +109,7 @@ def test_vertex_gradient_finite_difference():
 
     def loss(v):
         phi0 = signed_distance_init(grid, v, faces, dtype=jnp.float32)
-        phi = reinit_fixed(phi0, dx, 0.1 * dx, 3, use_pallas=False)
+        phi = reinit_fixed(phi0, dx, 0.1 * dx, 3)
         # central 2x2 window: rays that clearly hit (non-converged rays
         # carry zero gradient by design)
         t = trace_depth(phi, grid, origins, dirs, 200, 0.01 * dx, 10.0)
@@ -134,48 +133,20 @@ def test_sharded_vertex_gradient_matches_single_device(eight_devices):
     the backward stencil sweep): loss and vertex gradient through the
     mesh-sharded pipeline equal the single-device pipeline's on an 8-way
     virtual mesh."""
-    from levelsetfortran_tpu.parallel.mesh import make_mesh
+    from levelsetfortran_jax.parallel.mesh import make_mesh
 
     verts, faces = _octahedron()
     grid = _grid(24)
     mesh = make_mesh((2, 2, 2), eight_devices)
     kw = dict(eye=(0.0, -3.0, 0.0), target=(0.0, 0.0, 0.0),
               reinit_steps=4, minmax_steps=2, height=10, width=10,
-              n_march_steps=48, use_pallas=False)
+              n_march_steps=48)
 
     target = jnp.zeros((10, 10), jnp.float32)
     l_ref, g_ref = image_loss_and_vertex_grad(verts, faces, grid, target,
                                               **kw)
     l_sh, g_sh = image_loss_and_vertex_grad(verts, faces, grid, target,
                                             mesh=mesh, **kw)
-    np.testing.assert_allclose(float(l_sh), float(l_ref), rtol=1e-4)
-    g_ref = np.asarray(g_ref)
-    g_sh = np.asarray(jax.device_get(g_sh))
-    assert np.abs(g_ref).max() > 0.0
-    np.testing.assert_allclose(g_sh, g_ref, atol=1e-4, rtol=1e-3)
-
-
-@pytest.mark.slow
-def test_sharded_vertex_gradient_fused_kernels(eight_devices):
-    """BASELINE's mandated path end-to-end: sharded pixel->vertex
-    gradients where the backward stencil sweep runs the fused Pallas
-    ADJOINT kernels per shard (2D mesh; use_pallas forced on — interpret
-    mode on CPU)."""
-    from levelsetfortran_tpu.parallel.mesh import make_mesh
-
-    verts, faces = _octahedron()
-    grid = _grid(32)
-    mesh = make_mesh((2, 2, 1), eight_devices[:4])
-    kw = dict(eye=(0.0, -3.0, 0.0), target=(0.0, 0.0, 0.0),
-              reinit_steps=4, minmax_steps=2, height=10, width=10,
-              n_march_steps=48)
-
-    target = jnp.zeros((10, 10), jnp.float32)
-    l_ref, g_ref = image_loss_and_vertex_grad(verts, faces, grid, target,
-                                              use_pallas=True, **kw)
-    l_sh, g_sh = image_loss_and_vertex_grad(verts, faces, grid, target,
-                                            mesh=mesh, use_pallas=True,
-                                            **kw)
     np.testing.assert_allclose(float(l_sh), float(l_ref), rtol=1e-4)
     g_ref = np.asarray(g_ref)
     g_sh = np.asarray(jax.device_get(g_sh))

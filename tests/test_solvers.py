@@ -6,12 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from levelsetfortran_tpu.grid.grid import Grid3D
-from levelsetfortran_tpu.models.analytic import sdf_box, sdf_sphere
-from levelsetfortran_tpu.ops.stencil import interior_mask
-from levelsetfortran_tpu.solvers.advect import advect_nodes
-from levelsetfortran_tpu.solvers.minmax_flow import minmax_flow
-from levelsetfortran_tpu.solvers.reinit import reinit, reinit_fixed
+from levelsetfortran_jax.grid.grid import Grid3D
+from levelsetfortran_jax.models.analytic import sdf_box, sdf_sphere
+from levelsetfortran_jax.ops.stencil import interior_mask
+from levelsetfortran_jax.solvers.advect import advect_nodes
+from levelsetfortran_jax.solvers.minmax_flow import (check_stable_step,
+                                                     minmax_flow)
+from levelsetfortran_jax.solvers.reinit import reinit, reinit_fixed
 
 
 def make_grid(n=32, dx=0.1):
@@ -40,7 +41,7 @@ class TestReinit:
         p = grid.coords(jnp.float64)
         phi0 = 2.5 * sdf_sphere(p, (0, 0, 0), 0.7)
         res = reinit(phi0, grid.dx, 0.1 * grid.dx, 300, 1e-12)
-        from levelsetfortran_tpu.ops.weno import weno_godunov
+        from levelsetfortran_jax.ops.weno import weno_godunov
         g, _ = weno_godunov(res.phi, grid.dx)
         core = np.asarray(interior_mask(phi0.shape, 5))
         r = np.linalg.norm(np.asarray(p), axis=-1)
@@ -110,6 +111,46 @@ class TestMinMax:
         assert int(res.iterations) <= 2
         np.testing.assert_allclose(np.asarray(res.phi), np.asarray(phi0),
                                    atol=1e-12)
+
+
+class TestMinMaxStability:
+    @pytest.mark.parametrize("diag, dx, unstable", [
+        (2 * np.sqrt(3), 2 / 235, True),      # unit body at 257^3
+        (20 * np.sqrt(3), 20 / 235, False),   # the same body at radius 10
+        (3.0, 0.0201, False),                 # diag * dx just above 0.06
+        (3.0, 0.0199, True),
+    ])
+    def test_check_stable_step(self, diag, dx, unstable):
+        """The reference's h1 = 0.01 dx / diag is refused exactly where
+        12 h1 / dx^2 > 2 (diag * dx < 0.06)."""
+        h1 = 0.01 * dx / diag
+        if unstable:
+            with pytest.raises(ValueError, match="past explicit diffusion"):
+                check_stable_step(h1, dx)
+        else:
+            check_stable_step(h1, dx)
+
+    @pytest.mark.parametrize("entry", ["run_mesh", "run_batch", "cli"])
+    def test_pipeline_refuses_unstable_minmax(self, entry, tmp_path):
+        """The pipeline raises before any device work instead of returning
+        a blown-up field as converged."""
+        from levelsetfortran_jax.config import LevelSetConfig
+        from levelsetfortran_jax.io.stl import write_stl
+        from levelsetfortran_jax.models.analytic import icosphere_mesh
+        from levelsetfortran_jax.pipeline import cli
+        from levelsetfortran_jax.pipeline.batch import run_batch
+        from levelsetfortran_jax.pipeline.run import run_mesh
+        mesh = icosphere_mesh(radius=1.0, subdiv=1)
+        cfg = LevelSetConfig(dx=0.015, pad_cells=2, reinit_iters=1,
+                             advect_iters=1, final_reinit_iters=1)
+        stl = str(tmp_path / "unit.stl")
+        write_stl(stl, mesh)
+        call = {"run_mesh": lambda: run_mesh(mesh, cfg, write_outputs=False),
+                "run_batch": lambda: run_batch([mesh], cfg),
+                "cli": lambda: cli.main([stl, "--dx", "0.015",
+                                         "--no-outputs"])}[entry]
+        with pytest.raises(ValueError, match="past explicit diffusion"):
+            call()
 
 
 class TestAdvect:

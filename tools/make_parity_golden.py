@@ -1,5 +1,6 @@
 """Produce committed reference-parity golden fields (SURVEY.md §7, last
-bullet; BASELINE configs 1-2).
+bullet; BASELINE configs 1-2) on the generated fixtures
+(levelsetfortran_jax.models.fixtures).
 
 No gfortran exists in this environment, so the REFERENCE_PARITY
 configuration (float64, all reference quirks on — config.py) IS the
@@ -12,16 +13,17 @@ flag, the max|delta phi| of the converged field when that single quirk is
 toggled off — written to PARITY_QUIRKS.md.
 
 Usage (CPU, x64):
-    python tools/make_parity_golden.py [--cube40]
+    python tools/make_parity_golden.py [--icosphere]
 
-twoCube10 (24 triangles) runs in ~1 min; cube40 (18,276 triangles) adds an
-O(grid x ntri) init and takes much longer — enabled with --cube40.
+twoCube10 (24 triangles) runs in ~1 min; --icosphere adds the SDF-only
+golden of the 20,480-triangle seeded icosphere (the cube40-class body).
 """
 
 import argparse
 import hashlib
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -29,15 +31,21 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 
 import numpy as np  # noqa: E402
 
+from levelsetfortran_jax.models import fixtures  # noqa: E402
+from levelsetfortran_jax.utils.compile_cache import (  # noqa: E402
+    configure_compile_cache)
+
+configure_compile_cache()
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "..", "tests", "golden")
-REF_DIR = "/root/reference"
+
+#: SDF-only parity of the icosphere body (the cube40-class fixture) at
+#: dx=0.2 (22^3 grid) with the culled init: the dense scan over 20,480
+#: triangles takes minutes on a CPU, and no grid point lies on the surface
+ICOSPHERE_SDF = dict(dx=0.2, minmax_iters=0, advect_iters=0,
+                     final_reinit_iters=0, init_culling="auto")
 
 # quirk -> reference citation (for the impact table)
 QUIRKS = {
@@ -48,7 +56,7 @@ QUIRKS = {
 
 
 def run_parity(stl, cfg):
-    from levelsetfortran_tpu.pipeline.run import run
+    from levelsetfortran_jax.pipeline.run import run
     return run(stl, cfg, write_outputs=False)
 
 
@@ -121,7 +129,7 @@ def write_quirk_md():
     md = os.path.join(os.path.dirname(__file__), "..", "PARITY_QUIRKS.md")
     with open(md, "w") as f:
         f.write("# Per-quirk impact on the converged parity field\n\n")
-        f.write("Measured on BOTH bundled fixtures (`README.md:5`) at full "
+        f.write("Measured on the reference's fixtures (`README.md:5`) at full "
                 "reference settings (REFERENCE_PARITY: float64, all quirks "
                 "on, full pipeline incl. smoothing + advection), toggling "
                 "each quirk OFF individually; values are max|delta| of the "
@@ -154,59 +162,23 @@ def write_quirk_md():
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cube40", action="store_true",
-                    help="also produce the cube40 golden (slow: "
-                         "O(grid x 18k triangles) init on CPU)")
-    ap.add_argument("--cube40-quirks", action="store_true",
-                    help="measure the per-quirk impact table on cube40's "
-                         "FULL pipeline (smoothing + advection; 4 slow "
-                         "runs); skips the twocube10 pass")
+    ap.add_argument("--icosphere", action="store_true",
+                    help="also produce the icosphere SDF-only golden")
     ap.add_argument("--skip-twocube", action="store_true",
                     help="skip the twocube10 golden + quirk pass")
     args = ap.parse_args()
 
-    from levelsetfortran_tpu.config import REFERENCE_PARITY
+    from levelsetfortran_jax.config import REFERENCE_PARITY
 
-    if not (args.skip_twocube or args.cube40_quirks):
-        rows = make_golden("twocube10",
-                           os.path.join(REF_DIR, "twoCube10.stl"),
+    out = tempfile.mkdtemp()
+    if not args.skip_twocube:
+        rows = make_golden("twocube10", fixtures.write_twocube10(out),
                            REFERENCE_PARITY, quirk_deltas=True)
         save_rows("twocube10", rows)
 
-    if args.cube40:
-        # BASELINE config 1 is the reduced SDF-only mode (README.md:25):
-        # min/max iterations zero
-        cfg1 = REFERENCE_PARITY.replace(minmax_iters=0, advect_iters=0,
-                                        final_reinit_iters=0)
-        make_golden("cube40_sdf", os.path.join(REF_DIR, "cube40.stl"), cfg1)
-
-    if args.cube40_quirks:
-        # full pipeline (the deriv8_y_jp1 quirk only reaches the field
-        # through node advection, set3d.f90:470-475) — no golden is pinned
-        # for this config (the SDF-only golden stays the committed gate);
-        # only the quirk deltas are recorded
-        import dataclasses
-
-        base = run_parity(os.path.join(REF_DIR, "cube40.stl"),
-                          REFERENCE_PARITY)
-        print(f"cube40 full-pipeline base: reinit={base.reinit_iters} "
-              f"minmax={base.minmax_iters} asym={base.asymptotic_error:.4e}",
-              flush=True)
-        rows = []
-        for q, cite in QUIRKS.items():
-            q_off = dataclasses.replace(REFERENCE_PARITY.quirks,
-                                        **{q: False})
-            res = run_parity(os.path.join(REF_DIR, "cube40.stl"),
-                             REFERENCE_PARITY.replace(quirks=q_off))
-            d_init = float(np.max(np.abs(res.phi_init - base.phi_init)))
-            d_sm = float(np.max(np.abs(res.phi_smoothed
-                                       - base.phi_smoothed)))
-            d_adv = float(np.max(np.abs(res.advected - base.advected)))
-            rows.append((q, cite, d_init, d_sm, d_adv))
-            print(f"  quirk {q} off: d_init={d_init:.3e} "
-                  f"d_smoothed={d_sm:.3e} d_advected={d_adv:.3e}",
-                  flush=True)
-        save_rows("cube40", rows)
+    if args.icosphere:
+        make_golden("icosphere5_sdf", fixtures.write_icosphere(out, seed=0),
+                    REFERENCE_PARITY.replace(**ICOSPHERE_SDF))
 
     write_quirk_md()
 
